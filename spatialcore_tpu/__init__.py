@@ -1,12 +1,12 @@
-"""spatialcore_tpu — TPU-native spatial statistics for spatial transcriptomics.
+"""spatialcore_tpu — accelerator-native spatial statistics for spatial transcriptomics.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
+A from-scratch JAX/XLA framework with the capabilities of the
 SpatialCore reference library (see SURVEY.md): spatial autocorrelation
 (Moran's I, Geary's C, Lee's L, local variants with permutation nulls),
 neighborhood/niche analysis, spatial domain extraction without an R bridge,
 threshold-based classification, and a full cell-type annotation pipeline —
 all built on fixed-degree sparse neighbor graphs and counter-based PRNG
-permutations that shard across TPU meshes.
+permutations that shard across device meshes.
 
 Module availability follows the reference façade
 (/root/reference/src/spatialcore/__init__.py:14-99): ``core`` is mandatory;
@@ -17,67 +17,54 @@ dependencies are missing.
 from __future__ import annotations
 
 import importlib
+import os as _os
 from types import ModuleType
-from typing import Dict, List
+from typing import Dict, List, Mapping, Optional
 
 __version__ = "0.1.0"
 
-import os as _os
+
+def _compile_cache_dir(env: Mapping[str, str], configured: Optional[str],
+                       package_file: str) -> Optional[str]:
+    """Where the package should put JAX's persistent compilation cache.
+
+    ``None`` when the user already chose: ``JAX_COMPILATION_CACHE_DIR``
+    (JAX reads it itself) or an explicit ``jax.config`` setting. Otherwise
+    a fixed ``<checkout>/.cache/jax`` beside the package, so repeated runs
+    from one checkout find their compiled programs again.
+    """
+    if env.get("JAX_COMPILATION_CACHE_DIR") or configured:
+        return None
+    checkout = _os.path.dirname(_os.path.dirname(
+        _os.path.abspath(package_file)))
+    return _os.path.join(checkout, ".cache", "jax")
 
 
 def _enable_persistent_compile_cache() -> None:
-    """Opt into JAX's persistent compilation cache (kernel compiles for the
-    1M-cell graph/permutation programs take minutes on remote TPU backends;
-    the cache makes them one-time). User-set config/env always wins."""
-    try:
-        import jax
+    """Opt into JAX's persistent compilation cache (the 1M-cell graph and
+    permutation programs take seconds to minutes to compile)."""
+    import jax
 
-        if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-            return
-        if jax.config.jax_compilation_cache_dir:
-            return
-        # key the dir by the host's CPU feature flags: XLA:CPU AOT
-        # executables cached on a DIFFERENT microarchitecture load with a
-        # feature-mismatch warning and then run wrong-machine code
-        # (observed 2026-08-19 after a host swap: f32 summation drift in
-        # the multichip dryrun; tests/conftest.py documents the SIGFAULT
-        # variant). A host change must start a fresh cache.
-        import hashlib
-
-        try:
-            with open("/proc/cpuinfo") as _f:
-                _flags = next(
-                    (ln for ln in _f if ln.startswith("flags")), "")
-        except OSError:
-            import platform
-
-            _flags = platform.processor()
-        _tag = hashlib.sha1(_flags.encode()).hexdigest()[:10]
-        # prefer a REPO-located cache when the package runs from a git
-        # checkout: the home directory is re-imaged between benchmark
-        # rounds on this infrastructure (observed 2026-08-20: the driver's
-        # bench process started with an EMPTY ~/.cache and paid 45.6 s
-        # graph + 98 s plan + 82 s AOT re-compiles of shapes compiled the
-        # day before), while the checkout persists. Installed packages
-        # (site-packages is not a place to write) keep the home path.
-        _pkg_parent = _os.path.dirname(_os.path.dirname(
-            _os.path.abspath(__file__)))
-        if _os.path.isdir(_os.path.join(_pkg_parent, ".git")):
-            _base = _os.path.join(_pkg_parent, ".cache")
-        else:
-            _base = _os.path.join(
-                _os.path.expanduser("~"), ".cache", "spatialcore_tpu")
-        cache_dir = _os.path.join(_base, f"jax_cache_{_tag}")
+    cache_dir = _compile_cache_dir(_os.environ,
+                                   jax.config.jax_compilation_cache_dir,
+                                   __file__)
+    if cache_dir is not None:
         jax.config.update("jax_compilation_cache_dir", cache_dir)
         jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # never block import on cache setup
-        pass
 
 
 _enable_persistent_compile_cache()
 
 from . import core  # mandatory
-from .core import SpatialData, get_logger, read_h5ad, update_metadata, write_h5ad
+from .core import get_logger, update_metadata
+
+
+def __getattr__(name):
+    # container and h5ad IO need pandas/h5py: resolve them on first use
+    if name in ("SpatialData", "read_h5ad", "write_h5ad"):
+        return getattr(core, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 _OPTIONAL_MODULES = ["ops", "spatial", "stats", "annotation", "plotting",
                      "parallel", "utils", "nmf", "diffusion", "r_bridge"]

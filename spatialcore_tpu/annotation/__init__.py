@@ -1,6 +1,6 @@
 """Cell-type annotation: ontology tools, training, and prediction.
 
-TPU-native replacement for the reference's ``spatialcore.annotation``
+Device-native replacement for the reference's ``spatialcore.annotation``
 (/root/reference/src/spatialcore/annotation/__init__.py): the CellTypist
 SGD classifier becomes a JAX/optax multinomial logistic regression; the
 ontology matcher, label patterns, and boolean-expression evaluator are

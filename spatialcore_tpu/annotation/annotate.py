@@ -257,7 +257,7 @@ def annotate_celltypist(
         raise ValueError(
             "majority_voting=True needs over_clustering (a precomputed "
             "cluster column in obs); on-the-fly over-clustering is a "
-            "scanpy-side feature the TPU build does not bundle")
+            "scanpy-side feature this build does not bundle")
     adata = annotate_cells(
         adata, models, confidence_method=confidence_transform,
         min_gene_overlap_pct=min_gene_overlap_pct, batch_size=batch_size,

@@ -33,7 +33,7 @@ none):
   markers push it up, matching the reference's T-cell-collapsing note).
 
 All group reductions run on device as one-hot matmuls ([T,N]@[N,G] —
-MXU-shaped), not per-type Python loops; only the final [T]-sized
+dense matmuls), not per-type Python loops; only the final [T]-sized
 summaries come back to host.
 """
 

@@ -183,7 +183,7 @@ def query_cellxgene_census(
     """SOMA query → (stratified sample) → AnnData, memory-efficient.
 
     Filters combine with AND; ``value_filter`` passes a raw SOMA filter
-    string instead (TPU-side extra). With ``max_cells`` set, step 1 reads
+    string instead (an extra of this build). With ``max_cells`` set, step 1 reads
     only obs joinids + labels, step 2 samples stratified by cell type,
     step 3 fetches just the sampled rows; without it every matching cell
     downloads. ``resolve_hierarchy='remove_parents'`` drops cells labeled

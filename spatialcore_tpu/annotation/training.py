@@ -631,9 +631,9 @@ def train_celltypist_model(
     checkpoint_every: int = 10,
     resume: bool = True,
 ) -> CellTypeModel:
-    """Reference-signature trainer (ref training.py:556-729), TPU path.
+    """Reference-signature trainer (ref training.py:556-729), device path.
 
-    Thin front-end over ``train_cell_type_model``: the TPU implementation
+    Thin front-end over ``train_cell_type_model``: the device implementation
     is always on-device minibatch SGD, so ``use_SGD``/``mini_batch``/
     ``n_jobs`` are accepted for drop-in compatibility and logged when they
     request the sklearn-only paths; ``max_iter`` substitutes for ``epochs``
@@ -646,7 +646,7 @@ def train_celltypist_model(
     """
     if not use_SGD or n_jobs != -1:
         logger.info("train_celltypist_model: use_SGD/n_jobs are sklearn "
-                    "knobs; the TPU path always runs on-device SGD")
+                    "knobs; this build always runs on-device SGD")
     n_epochs = epochs if mini_batch else max_iter
     n = adata.n_obs
     eff_batch = batch_size

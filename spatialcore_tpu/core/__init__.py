@@ -1,14 +1,13 @@
-"""Cross-cutting runtime: container, IO, logging, provenance, caching, RNG."""
+"""Cross-cutting runtime: container, IO, logging, provenance, caching, RNG.
+
+The AnnData-style container, h5ad IO and gene maps need pandas (and h5py);
+they load on first use, so the device kernels (``ops``, ``parallel``)
+import with only JAX, NumPy and SciPy installed.
+"""
+
+import importlib
 
 from .cache import cache_result, clear_cache, get_cache_path
-from .container import AlignedDict, Raw, SpatialData, concat
-from .genes import (
-    download_ensembl_mapping,
-    is_ensembl_id,
-    load_ensembl_to_hugo_mapping,
-    normalize_gene_names,
-)
-from .io import read_h5ad, write_h5ad
 from .logging import get_logger, setup_file_logging, setup_logging
 from .metadata import (
     MetadataTracker,
@@ -25,6 +24,25 @@ from .normalization import (
     normalize_total,
 )
 from .rng import batch_permutations, key_for, permutation_keys
+
+#: names served lazily by :func:`__getattr__`, by submodule
+_LAZY = {
+    "container": ("AlignedDict", "Raw", "SpatialData", "concat"),
+    "genes": ("download_ensembl_mapping", "is_ensembl_id",
+              "load_ensembl_to_hugo_mapping", "normalize_gene_names"),
+    "io": ("read_h5ad", "write_h5ad"),
+}
+_LAZY_HOME = {name: mod for mod, names in _LAZY.items() for name in names}
+
+
+def __getattr__(name):
+    mod = _LAZY_HOME.get(name)
+    if mod is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f".{mod}", __name__), name)
+    globals()[name] = value
+    return value
 
 __all__ = [
     "AlignedDict", "Raw", "SpatialData", "concat",

@@ -7,7 +7,7 @@ needs: ``X``, ``obs``, ``var``, ``obsm``, ``varm``, ``obsp``, ``uns``,
 ``layers`` and ``raw``. On-disk interop with the h5ad format lives in
 ``core/io.py`` so real AnnData users can exchange files with this library.
 
-Design notes (TPU-first):
+Design notes (device-first):
 - ``X`` may be a numpy array, a scipy sparse matrix, or a jax Array. Compute
   layers convert to device arrays at the kernel boundary; the container itself
   is host-side and framework-neutral.

@@ -88,7 +88,7 @@ def load_ensembl_to_hugo_mapping(
     if not path.exists() and auto_download:
         try:
             download_ensembl_mapping(path)
-        except Exception as e:  # no network in air-gapped TPU pods
+        except Exception as e:  # no network on air-gapped compute hosts
             logger.warning(f"BioMart download failed ({e}); using built-in subset")
     if path.exists():
         df = pd.read_csv(path, sep="\t")

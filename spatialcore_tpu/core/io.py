@@ -1,6 +1,6 @@
 """h5ad read/write implemented directly on h5py.
 
-The environment (and a TPU host generally) need not carry the anndata stack,
+The environment (and an accelerator host generally) need not carry the anndata stack,
 so we speak the anndata on-disk format directly: dense / CSR / CSC matrices,
 dataframes with numeric, string, bool and categorical columns, and nested
 ``uns`` dicts. Files written here open in real anndata and vice versa for

@@ -9,7 +9,7 @@ using expm1 row-sum reversal with ±20% tolerance around 10k / 1M targets.
 
 The application side (``normalize_total`` + ``log1p``) replaces the scanpy
 calls the reference leans on; implemented with numpy/scipy since this is
-host-side IO-adjacent work, not the TPU hot path.
+host-side IO-adjacent work, not the device hot path.
 """
 
 from __future__ import annotations

@@ -140,12 +140,12 @@ def feistel_apply(key: jax.Array, idx: jax.Array, n: int) -> jax.Array:
 def feistel_permutation(key: jax.Array, n: int) -> jax.Array:
     """Pseudo-random permutation of ``arange(n)`` without a device sort.
 
-    ``jax.random.permutation`` sorts random keys — O(n log n) and ~40 ms at
-    n=1M on TPU, which dominates fast permutation-null kernels. This builds
+    ``jax.random.permutation`` sorts random keys — O(n log n), which
+    dominates fast permutation-null kernels at n=1M. This builds
     the permutation as pure elementwise math: a keyed Feistel bijection on
     the next power-of-4 domain, shrunk to [0, n) by cycle-walking (iterate
     the bijection until the value lands in range — exactly uniform over the
-    subdomain's induced permutations, Black & Rogaway 2002). ~50 ns/element.
+    subdomain's induced permutations, Black & Rogaway 2002).
 
     Deterministic per (key, n), independent of device count/sharding.
     """

@@ -1,9 +1,9 @@
-"""Non-negative matrix factorization on device (MXU multiplicative updates).
+"""Non-negative matrix factorization on device (multiplicative updates).
 
 The reference advertises a ``spatialcore.nmf`` module that does not exist
 ("Coming soon", /root/reference/src/spatialcore/__init__.py:58-68 and
 docs/index.md). This is a real implementation: Lee-Seung multiplicative
-updates, all matmuls on the MXU inside one ``lax.while_loop``, deterministic
+updates, all matmuls on device inside one ``lax.while_loop``, deterministic
 counter-based init, Frobenius-loss early stopping.
 """
 

@@ -1,4 +1,4 @@
-"""TPU compute kernels: graphs, autocorrelation, clustering, thresholds."""
+"""Device compute kernels: graphs, autocorrelation, clustering, thresholds."""
 
 from .fdr import apply_fdr, benjamini_hochberg, bonferroni
 from .graph import (
@@ -21,7 +21,6 @@ from .banded import (
 )
 from .lee import LeesLResult, lees_l_pairs
 from .streaming import streaming_moran_null
-from .pallas_knn import pallas_knn
 from .moran import (
     LocalMoranResult,
     QUADRANT_LABELS,
@@ -39,7 +38,7 @@ from .moran import (
 
 __all__ = [
     "SpatialGraph", "build_graph", "graph_moments", "knn_exact", "knn_grid",
-    "radius_neighbors", "spatial_lag", "pallas_knn",
+    "radius_neighbors", "spatial_lag",
     "standardize", "moran_observed", "geary_observed",
     "moran_analytic_moments", "geary_analytic_moments", "p_from_z",
     "permutation_test_global", "local_moran", "LocalMoranResult",

@@ -67,10 +67,9 @@ def benjamini_hochberg_discrete(p_values: jax.Array, n_levels: int,
     pmf = pm.reshape(m, R)
     lev = jnp.clip(jnp.round(pmf * n_levels).astype(jnp.int32) - 1,
                    0, n_levels - 1)
-    # LEVEL-BLOCKED histogram + LUT apply: per-element scatter/gather on
-    # TPU runs issue-bound (~40 M updates/s — 12.8 s for the [1M, 512]
-    # plane at P=1000, measured round 5, same class as the per-level
-    # lax.map it replaced), while compare+reduce over a virtual
+    # LEVEL-BLOCKED histogram + LUT apply: per-element scatter/gather
+    # is bound by the rate of single-element updates (the same class as
+    # the per-level lax.map it replaced), while compare+reduce over a virtual
     # [Lb, m, R] block fuses into vector passes. Counts/min-reps are the
     # same exact quantities, and the apply step exploits that ``adj`` is
     # NON-DECREASING in level (a suffix min over a shrinking suffix), so

@@ -1,4 +1,4 @@
-"""Raster geometry kernels: morphology + connected components on TPU.
+"""Raster geometry kernels: morphology + connected components on device.
 
 Replaces the reference's R subprocess geometry (sf/GEOS buffer-union-shrink +
 concaveman hulls, /root/reference/src/spatialcore/spatial/r_functions.R:34-124)
@@ -8,7 +8,7 @@ with a JAX raster pipeline (SURVEY.md §7 decision 4):
     → erode by r_shrink (dual of dilate) → connected components
     (pointer-jumping min-label propagation) → per-cell lookup.
 
-Morphology runs as 2D convolutions with disk kernels (MXU-friendly), the
+Morphology runs as 2D convolutions with disk kernels (dense device math), the
 component labeling as a ``lax.while_loop`` whose body is one 3×3 min-window
 plus two gather path-compression steps — O(log diameter) iterations instead
 of O(diameter) naive flooding. Grid resolution is the fidelity knob vs the

@@ -67,7 +67,7 @@ def _lloyd(X, centers, max_iter, tol):
         labels = jnp.argmin(dist, axis=1)
         onehot = jax.nn.one_hot(labels, k, dtype=X.dtype)        # [N, k]
         counts = jnp.sum(onehot, axis=0)                          # [k]
-        sums = onehot.T @ X                                       # [k, D] (MXU)
+        sums = onehot.T @ X                                       # [k, D] matmul
         new_centers = jnp.where(counts[:, None] > 0,
                                 sums / jnp.maximum(counts[:, None], 1.0),
                                 centers)

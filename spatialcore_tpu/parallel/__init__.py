@@ -6,7 +6,7 @@ over a ``jax.sharding.Mesh``: gene-sharded permutation nulls are
 embarrassingly parallel (each device keeps the full fixed-degree graph and
 its gene shard; identical counter-based keys keep draws bitwise equal to the
 single-device result), while cell-sharded layouts let XLA insert all-gathers
-over ICI for the neighbor gathers.
+over the device interconnect for the neighbor gathers.
 """
 
 from .mesh import auto_mesh, cell_sharding, gene_sharding, replicated

@@ -26,11 +26,12 @@ def auto_mesh(
     replicated, and no collectives hit the hot loop. Pass ``cell_shards`` to
     split the cell axis instead (e.g. when N is too large per device).
 
-    Multi-host (DCN): when run under multiple JAX processes, the host
-    dimension folds into the ``cells`` axis — cell sharding has no hot-loop
+    Multi-host: when run under multiple JAX processes, the host dimension
+    folds into the ``cells`` axis — cell sharding has no hot-loop
     collectives (only the one-time standardize psum and output layout), so
-    cross-host traffic rides DCN exactly once per statistic, while the
-    gene/permutation axis stays inside each host's ICI domain.
+    cross-host traffic crosses the network exactly once per statistic,
+    while the gene/permutation axis stays inside each host's device
+    interconnect.
     """
     if devices is None and jax.process_count() > 1:
         from jax.experimental import mesh_utils

@@ -85,7 +85,6 @@ def sharded_banded_permutation_test(
     den: jax.Array | None = None,
     stat: str = "moran",
     alternative: str = "greater",
-    band_impl: str = "auto",
     precision: str = "bf16",
     sz: jax.Array | None = None,
     draw_offset: int = 0,
@@ -122,7 +121,7 @@ def sharded_banded_permutation_test(
         return banded_permutation_test(
             plan, Z, S0, observed, seed=seed,
             n_permutations=n_permutations, stat=stat,
-            alternative=alternative, band_impl=band_impl, den=den,
+            alternative=alternative, den=den,
             precision=precision, sz=sz, draw_offset=draw_offset)
 
 
@@ -154,14 +153,10 @@ def sharded_banded_local_moran(
                       else f for f in plan))
     graph, Z = _place(graph, Z, mesh)
     with mesh:
-        # band_impl="xla": a pallas_call does not partition over the mesh;
-        # the einsum path is what the HLO-inspection test proves
-        # collective-free
         return banded_local_moran(plan, graph, Z, seed=seed,
                                   n_permutations=n_permutations,
                                   precision=precision,
-                                  perm_method=perm_method,
-                                  band_impl="xla")
+                                  perm_method=perm_method)
 
 
 def sharded_banded_local_geary(
@@ -299,9 +294,10 @@ def sharded_local_moran_2d(
 ):
     """LISA with BOTH axes sharded: cells × genes over the full mesh.
 
-    For outputs that exceed one chip's HBM (the north-star 1M × 5k f32
-    local-Moran field is 20 GB), the [N, G] inputs and all four [N, G]
-    outputs are laid out ("cells", "genes") so each chip holds only its
+    For outputs that exceed one device's memory (the north-star 1M × 5k
+    f32 local-Moran field is 20 GB per output plane), the [N, G] inputs
+    and all four [N, G] outputs are laid out ("cells", "genes") so each
+    device holds only its
     (N/cs × G/gs) tile. Each permutation draw's row gather ``Z[perm]``
     crosses cell shards — XLA lowers it to a collective whose temp is
     bounded by the GENE shard width (an [N, G/gs] slab), so the gene axis

@@ -5,7 +5,7 @@ comparison :29, confusion matrix :132, classification report :239, agreement
 heatmap :313, silhouette by type :393) — same public signatures.  The
 label-array functions additionally accept an AnnData in first position with
 obs column names (this package's historical convenience form), and
-``classification_report_table`` / ``agreement_metrics`` are TPU-build extras.
+``classification_report_table`` / ``agreement_metrics`` are extras of this build.
 """
 
 from __future__ import annotations

@@ -134,7 +134,7 @@ def make_spatial_domains(
     start = time.time()
     if r_functions_path is not None:
         logger.info("make_spatial_domains: r_functions_path ignored — the "
-                    "TPU build runs the raster geometry pass, not R")
+                    "this build runs the raster geometry pass, not R")
     if copy:
         adata = adata.copy()
     if spatial_key not in adata.obsm:

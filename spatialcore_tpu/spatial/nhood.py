@@ -2,8 +2,8 @@
 
 Named in BASELINE.json's north star ("neighborhood-enrichment scores become
 segment-sum/SpMV kernels over those W matrices"); the squidpy equivalent is
-``gr.nhood_enrichment``. Edge type-pair counts are one-hot matmuls on the
-MXU per neighbor slot; the permutation null shuffles labels with
+``gr.nhood_enrichment``. Edge type-pair counts are one-hot matmuls per
+neighbor slot; the permutation null shuffles labels with
 counter-based keys, one draw per ``lax.scan`` step (labels are [N] int32, so
 thousands of draws are cheap).
 """
@@ -37,7 +37,7 @@ def _nhood_counts_and_null(neighbor_idx, valid, codes, n_types: int,
             nb = codes_[neighbor_idx[:, j]]
             oh_nb = jax.nn.one_hot(nb, n_types, dtype=jnp.float32)
             oh_nb = jnp.where(valid[:, j:j + 1], oh_nb, 0.0)
-            counts = counts + oh.T @ oh_nb                         # MXU
+            counts = counts + oh.T @ oh_nb                         # matmul
         return counts
 
     observed = pair_counts(codes)

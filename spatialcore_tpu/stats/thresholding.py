@@ -6,7 +6,7 @@ threshold (:102-198), and the 2/3-component GMM threshold (:201-344). The
 reference uses numpy + scipy.stats.norm + sklearn GaussianMixture; here every
 kernel is jit-compiled JAX — the GMM is a vmapped EM over ``n_init`` restarts
 with counter-based deterministic seeding, so the whole fit runs as one XLA
-program on TPU.
+program on the device.
 """
 
 from __future__ import annotations

@@ -242,60 +242,6 @@ def test_feistel_permutation_properties():
     assert chi2 < 100, f"feistel occupancy chi2={chi2:.1f}"
 
 
-def test_pallas_band_impl_matches_xla(setup):
-    """Interpret-mode Pallas band contraction == XLA einsum path."""
-    coords, graph, Z = setup
-    plan = build_null_plan(graph, coords, block=64)
-    S0 = float(np.asarray(graph.neighbor_w).sum())
-    obs = moran_observed(graph, Z, S0)
-    p_x, m_x, s_x = banded_permutation_test(
-        plan, Z, S0, obs, seed=2, n_permutations=29, precision="f32",
-        band_impl="xla")
-    p_p, m_p, s_p = banded_permutation_test(
-        plan, Z, S0, obs, seed=2, n_permutations=29, precision="f32",
-        band_impl="pallas")
-    np.testing.assert_allclose(np.asarray(m_p), np.asarray(m_x), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_x), atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(p_p), np.asarray(p_x))
-
-
-def test_pallas_halo_band_impl_matches_xla(setup):
-    """Interpret-mode halo-ring Pallas contraction == XLA einsum path."""
-    coords, graph, Z = setup
-    plan = build_null_plan(graph, coords, block=64)
-    S0 = float(np.asarray(graph.neighbor_w).sum())
-    obs = moran_observed(graph, Z, S0)
-    p_x, m_x, s_x = banded_permutation_test(
-        plan, Z, S0, obs, seed=2, n_permutations=19, precision="f32",
-        band_impl="xla")
-    p_h, m_h, s_h = banded_permutation_test(
-        plan, Z, S0, obs, seed=2, n_permutations=19, precision="f32",
-        band_impl="pallas_halo")
-    np.testing.assert_allclose(np.asarray(m_h), np.asarray(m_x), atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(p_h), np.asarray(p_x))
-
-
-def test_pallas_halo4_band_impl_matches_xla(setup):
-    """Interpret-mode rotation-baked single-dot halo variant == XLA path.
-
-    The measured verdict (docs/performance.md dead-ends) is that halo4's
-    +33% redundant FLOPs lose to the 3-dot halo kernel at B=256 (21.4k vs
-    23.0k g*p/s); it stays selectable and this pins its correctness.
-    """
-    coords, graph, Z = setup
-    plan = build_null_plan(graph, coords, block=64)
-    S0 = float(np.asarray(graph.neighbor_w).sum())
-    obs = moran_observed(graph, Z, S0)
-    p_x, m_x, s_x = banded_permutation_test(
-        plan, Z, S0, obs, seed=2, n_permutations=19, precision="f32",
-        band_impl="xla")
-    p_h, m_h, s_h = banded_permutation_test(
-        plan, Z, S0, obs, seed=2, n_permutations=19, precision="f32",
-        band_impl="pallas_halo4")
-    np.testing.assert_allclose(np.asarray(m_h), np.asarray(m_x), atol=1e-6)
-    np.testing.assert_array_equal(np.asarray(p_h), np.asarray(p_x))
-
-
 def test_banded_local_moran_matches_direct(setup):
     """Banded LISA == direct kernel: same draws (sort/f32), same p."""
     from spatialcore_tpu.ops.banded import banded_local_moran
@@ -351,35 +297,6 @@ def test_banded_local_moran_int8(setup):
     assert (sig_a == sig_b).mean() > 0.9
 
 
-def test_halo_gene_tiling_matches_single_tile():
-    """The g-tiled halo grid (round 3: lifts the G<=2048 VMEM ceiling)
-    must reproduce the single-tile kernel exactly."""
-    import jax.numpy as jnp
-
-    from spatialcore_tpu.ops.banded import (
-        _band_cross_pallas_halo, _build_band, _halo_tiles, build_null_plan)
-    from spatialcore_tpu.ops.graph import build_graph
-
-    assert _halo_tiles(2560) == (2, 1280)
-    assert _halo_tiles(2048) == (1, 2048)
-    assert _halo_tiles(5000) == (3, 1792)   # 3*1792 = 5376 >= 5000
-
-    rng = np.random.default_rng(0)
-    n, G, B = 256, 256, 64
-    coords = rng.uniform(0, 100, (n, 2)).astype(np.float32)
-    graph = build_graph(coords, n_neighbors=4)
-    plan = build_null_plan(graph, block=B)
-    A = _build_band(plan.local_idx, plan.w_local, B, jnp.float32)
-    nb = A.shape[0]
-    Zp = jnp.asarray(rng.standard_normal((nb + 2, B, G)), jnp.float32)
-
-    one = np.asarray(_band_cross_pallas_halo(A, Zp, interpret=True,
-                                             g_tile=G))
-    tiled = np.asarray(_band_cross_pallas_halo(A, Zp, interpret=True,
-                                               g_tile=G // 4))
-    np.testing.assert_allclose(tiled, one, rtol=1e-6, atol=1e-6)
-
-
 def test_banded_int8_statistically_equivalent(setup):
     """int8 null mode: 100% decision agreement with the f32 oracle path.
 
@@ -416,24 +333,6 @@ def test_banded_int8_geary(setup):
         stat="geary", alternative="less")
     np.testing.assert_allclose(np.asarray(m8), np.asarray(m32), atol=5e-3)
     np.testing.assert_allclose(np.asarray(p8), np.asarray(p32), atol=0.05)
-
-
-def test_pallas_halo_int8_matches_xla(setup):
-    """Interpret-mode int8 halo kernel == int8 XLA einsum path EXACTLY
-    (both accumulate the identical integers)."""
-    coords, graph, Z = setup
-    plan = build_null_plan(graph, coords, block=64)
-    S0 = float(np.asarray(graph.neighbor_w).sum())
-    obs = moran_observed(graph, Z, S0)
-    p_x, m_x, s_x = banded_permutation_test(
-        plan, Z, S0, obs, seed=2, n_permutations=29, precision="int8",
-        band_impl="xla")
-    p_k, m_k, s_k = banded_permutation_test(
-        plan, Z, S0, obs, seed=2, n_permutations=29, precision="int8",
-        band_impl="pallas_halo")
-    np.testing.assert_array_equal(np.asarray(p_k), np.asarray(p_x))
-    np.testing.assert_allclose(np.asarray(m_k), np.asarray(m_x),
-                               rtol=1e-6, atol=1e-7)
 
 
 def test_int8_prequantized_matches_inline(setup):
@@ -517,10 +416,10 @@ def test_int8_prequantized_den_none_mean_std_units(setup):
     den = jnp.sum(Z * Z, axis=0)
     p_ref, m_ref, s_ref = banded_permutation_test(
         plan, Zq, S0, obs, seed=3, n_permutations=40, precision="int8",
-        sz=s_z, den=den, band_impl="xla")
+        sz=s_z, den=den)
     p, m, s = banded_permutation_test(
         plan, Zq, S0, obs, seed=3, n_permutations=40, precision="int8",
-        sz=s_z, den=None, band_impl="xla")
+        sz=s_z, den=None)
     np.testing.assert_array_equal(np.asarray(p_ref), np.asarray(p))
     # same units: den from codes is rescaled by s², so the only delta is
     # int8 rounding of Σz² (≤ quantizer step); demand tight agreement
@@ -541,14 +440,13 @@ def test_draw_offset_matches_unchunked(setup):
     obs = moran_observed(graph, Z, S0)
     P = 40
     p_full, _, _ = banded_permutation_test(
-        plan, Z, S0, obs, seed=6, n_permutations=P, band_impl="xla")
+        plan, Z, S0, obs, seed=6, n_permutations=P)
     c_full = np.round(np.asarray(p_full) * (P + 1) - 1)
     c_sum = 0
     for off in (0, 15, 30):
         pc = min(15, P - off)
         p_c, _, _ = banded_permutation_test(
-            plan, Z, S0, obs, seed=6, n_permutations=pc,
-            band_impl="xla", draw_offset=off)
+            plan, Z, S0, obs, seed=6, n_permutations=pc, draw_offset=off)
         c_sum = c_sum + np.round(np.asarray(p_c) * (pc + 1) - 1)
     np.testing.assert_array_equal(c_full, c_sum)
 
@@ -989,165 +887,6 @@ def test_fused_moran_geary_validates_observed_shape(setup):
             stat="moran_geary")
 
 
-def test_lisa_i8_pallas_band_impl_bitwise(setup):
-    """The fused Pallas draw step (band lag + far + compare + count in one
-    kernel, int32 lag never in HBM) is bitwise-equal to the XLA einsum
-    path — both are exact integer arithmetic."""
-    from spatialcore_tpu.ops.banded import banded_local_moran
-
-    coords, graph, Z = setup
-    plan = build_null_plan(graph, coords, block=64)
-    ref = banded_local_moran(plan, graph, Z, seed=9, n_permutations=49,
-                             precision="int8", band_impl="xla")
-    got = banded_local_moran(plan, graph, Z, seed=9, n_permutations=49,
-                             precision="int8", band_impl="pallas")
-    np.testing.assert_array_equal(np.asarray(got.p_value),
-                                  np.asarray(ref.p_value))
-    # int16-counter regime too (P > 127)
-    ref2 = banded_local_moran(plan, graph, Z, seed=9, n_permutations=129,
-                              precision="int8", band_impl="xla")
-    got2 = banded_local_moran(plan, graph, Z, seed=9, n_permutations=129,
-                              precision="int8", band_impl="pallas")
-    np.testing.assert_array_equal(np.asarray(got2.p_value),
-                                  np.asarray(ref2.p_value))
-
-
-def test_lisa_i8_windowed_far_bitwise(setup):
-    """The windowed-far fused kernel (no dense [Npad, G] far layer; far
-    runs covered by two scalar-prefetched S-row windows) is bitwise-equal
-    to both scatter paths — integer adds commute, so regrouping far-edge
-    contributions per block cannot change any count."""
-    import jax.numpy as jnp
-
-    from spatialcore_tpu.ops.banded import (
-        _banded_local_moran_p_i8, banded_local_moran)
-
-    coords, graph, Z = setup
-    plan = build_null_plan(graph, coords, block=64)
-    assert plan.far_starts is not None
-    assert plan.far_bmax > 0          # the fixture graph has far edges
-    # run starts describe the compact list exactly
-    starts = np.asarray(plan.far_starts)
-    live = np.asarray(plan.far_w) > 0
-    assert starts[-1] == live.sum()
-    bn = (np.asarray(plan.far_src)[live] - plan.block) // plan.block
-    np.testing.assert_array_equal(np.diff(starts),
-                                  np.bincount(bn, minlength=len(starts) - 1))
-
-    def run_p(band_impl, windowed, perm_method="feistel"):
-        return np.asarray(_banded_local_moran_p_i8(
-            plan.order, plan.rank, plan.local_idx, plan.w_local,
-            plan.far_src, plan.far_dst, plan.far_w, Z, jnp.uint32(3),
-            block=plan.block, n=plan.n, n_permutations=37,
-            perm_method=perm_method, band_impl=band_impl,
-            far_starts=plan.far_starts if windowed else None,
-            far_bmax=plan.far_bmax if windowed else 0,
-            interpret=True))
-
-    p_xla = run_p("xla", False)
-    p_dense = run_p("pallas", False)     # dense-far fallback kernel
-    p_win = run_p("pallas", True)        # windowed kernel
-    np.testing.assert_array_equal(p_dense, p_xla)
-    np.testing.assert_array_equal(p_win, p_xla)
-    # the legacy sort stream flows through the windowed far gather too
-    np.testing.assert_array_equal(run_p("pallas", True, "sort"),
-                                  run_p("xla", False, "sort"))
-    # public API routes through the windowed path and agrees with xla
-    got = banded_local_moran(plan, graph, Z, seed=3, n_permutations=37,
-                             precision="int8", band_impl="pallas")
-    ref = banded_local_moran(plan, graph, Z, seed=3, n_permutations=37,
-                             precision="int8", band_impl="xla")
-    np.testing.assert_array_equal(np.asarray(got.p_value),
-                                  np.asarray(ref.p_value))
-
-
-def test_geary_i8_windowed_far_bitwise(setup):
-    """Fused windowed local-Geary draws (z² two-plane split derived
-    on-chip from the int8 windows) are all-integer — bitwise-equal to
-    the XLA einsum body on both draw streams."""
-    from spatialcore_tpu.ops.banded import _banded_local_geary_p_i8
-
-    coords, graph, Z = setup
-    plan = build_null_plan(graph, coords, block=64)
-    assert plan.far_bmax > 0
-
-    def run_p(band_impl, windowed, perm_method="feistel"):
-        _, p = _banded_local_geary_p_i8(
-            plan.order, plan.rank, plan.local_idx, plan.w_local,
-            plan.far_src, plan.far_dst, plan.far_w, Z, jnp.uint32(11),
-            block=plan.block, n=plan.n, n_permutations=29,
-            perm_method=perm_method, band_impl=band_impl,
-            far_starts=plan.far_starts if windowed else None,
-            far_bmax=plan.far_bmax if windowed else 0,
-            interpret=True)
-        return np.asarray(p)
-
-    np.testing.assert_array_equal(run_p("pallas", True), run_p("xla", False))
-    np.testing.assert_array_equal(run_p("pallas", True, "sort"),
-                                  run_p("xla", False, "sort"))
-
-
-@pytest.mark.parametrize("star", [True, False])
-@pytest.mark.parametrize("alternative", ["two-sided", "greater", "less"])
-def test_getis_i8_windowed_far_bitwise(setup, star, alternative):
-    """Fused windowed Getis draws match the XLA body bitwise: Gi*
-    decisions are exact-integer (one-sided) or a sign test on shared f32
-    inputs (two-sided); Gi adds the exact pair-tie short-circuit, which
-    covers every mathematical tie (the fixture's integer code sums
-    collide constantly — this is what the rule exists for)."""
-    from spatialcore_tpu.ops.banded import _banded_getis_p_i8
-
-    coords, graph, Z = setup
-    plan = build_null_plan(graph, coords, block=64)
-    rng = np.random.default_rng(3)
-    X = jnp.asarray(rng.poisson(3.0, Z.shape).astype(np.float32))
-
-    def run_p(band_impl, windowed, perm_method="feistel"):
-        return np.asarray(_banded_getis_p_i8(
-            plan.order, plan.rank, plan.local_idx, plan.w_local,
-            plan.far_src, plan.far_dst, plan.far_w, X, jnp.uint32(5),
-            block=plan.block, n=plan.n, n_permutations=29, star=star,
-            alternative=alternative, perm_method=perm_method,
-            band_impl=band_impl,
-            far_starts=plan.far_starts if windowed else None,
-            far_bmax=plan.far_bmax if windowed else 0,
-            interpret=True))
-
-    np.testing.assert_array_equal(run_p("pallas", True), run_p("xla", False))
-    np.testing.assert_array_equal(run_p("pallas", True, "sort"),
-                                  run_p("xla", False, "sort"))
-
-
-def test_lee_i8_windowed_far_bitwise(setup):
-    """Fused windowed Lee draws: per-cell counts are exact int32 →
-    bitwise; the global p sums per-block f32 partials with the observed
-    side computed in the same blockwise order (equal on this fixture)."""
-    from spatialcore_tpu.ops.banded import _banded_lees_p_i8
-
-    coords, graph, Z = setup
-    plan = build_null_plan(graph, coords, block=64)
-    rng = np.random.default_rng(5)
-    Zx = jnp.asarray(rng.normal(size=Z.shape).astype(np.float32))
-
-    def run_p(band_impl, windowed, perm_method="feistel"):
-        pg, pl_ = _banded_lees_p_i8(
-            plan.order, plan.rank, plan.local_idx, plan.w_local,
-            plan.far_src, plan.far_dst, plan.far_w, Zx, Z, jnp.uint32(7),
-            block=plan.block, n=plan.n, n_permutations=29,
-            perm_method=perm_method, compute_cell_pvalues=True,
-            band_impl=band_impl,
-            far_starts=plan.far_starts if windowed else None,
-            far_bmax=plan.far_bmax if windowed else 0,
-            interpret=True)
-        return np.asarray(pg), np.asarray(pl_)
-
-    for pm in ("feistel", "sort"):
-        pg_w, pl_w = run_p("pallas", True, pm)
-        pg_x, pl_x = run_p("xla", False, pm)
-        np.testing.assert_array_equal(pl_w, pl_x)
-        np.testing.assert_array_equal(pg_w, pg_x)
-
-
 def test_chunked_observed_pass_bitwise(setup, monkeypatch):
     """Gene-chunking the one-time observed pass is bitwise-invisible.
 
@@ -1199,10 +938,10 @@ def test_global_win_far_matches_exact_decisions(setup):
     weights coincide with the exact ones for row-normalized kNN (equal
     weights quantize to exactly 127), so p/mean/std match the exact-far
     operator at f32-summation tolerance, and decisions match the f32
-    oracle exactly (VERDICT r3 item 1)."""
+    oracle exactly."""
     coords, graph, Z = setup
     plan = build_null_plan(graph, coords, block=64)
-    assert plan.far_bmax > 0
+    assert int((np.asarray(plan.far_w) > 0).sum()) > 0
     S0 = float(np.asarray(graph.neighbor_w).sum())
     obs = moran_observed(graph, Z, S0)
     p32, _, _ = banded_permutation_test(
@@ -1219,29 +958,6 @@ def test_global_win_far_matches_exact_decisions(setup):
     np.testing.assert_allclose(np.asarray(sw), np.asarray(se),
                                rtol=1e-3, atol=1e-5)
     assert ((np.asarray(pw) < 0.05) == (np.asarray(p32) < 0.05)).all()
-
-
-def test_global_win_far_pallas_matches_xla_twin(setup):
-    """The fused windowed-far cross kernel and its XLA twin evaluate the
-    SAME quantized operator — identical integer band/far dots — and agree
-    to f32-summation tolerance on every output."""
-    coords, graph, Z = setup
-    plan = build_null_plan(graph, coords, block=64)
-    S0 = float(np.asarray(graph.neighbor_w).sum())
-    obs = moran_observed(graph, Z, S0)
-    for stat, o, alt in (("moran", obs, "greater"),
-                         ("geary", geary_observed(graph, Z, S0), "less")):
-        p_k, m_k, _ = banded_permutation_test(
-            plan, Z, S0, o, seed=2, n_permutations=29, precision="int8",
-            stat=stat, alternative=alt, far_mode="win",
-            band_impl="pallas_halo")
-        p_x, m_x, _ = banded_permutation_test(
-            plan, Z, S0, o, seed=2, n_permutations=29, precision="int8",
-            stat=stat, alternative=alt, far_mode="win", band_impl="xla")
-        np.testing.assert_allclose(np.asarray(p_k), np.asarray(p_x),
-                                   atol=0.05)
-        np.testing.assert_allclose(np.asarray(m_k), np.asarray(m_x),
-                                   rtol=1e-5, atol=1e-6)
 
 
 def test_global_win_far_fused_moran_geary(setup):
@@ -1292,8 +1008,8 @@ def test_global_win_far_draw_offset_chunks(setup):
 
 
 def test_global_win_far_validation():
-    """far_mode="win" input gates: f32 precision and runless plans fail
-    loudly; auto falls back to exact on a runless plan."""
+    """far_mode="win" input gates: f32 precision and unknown modes fail
+    loudly; int8's default far mode is the windowed operator."""
     rng = np.random.default_rng(3)
     coords = rng.uniform(0, 50, (300, 2)).astype(np.float32)
     graph = build_graph(jnp.asarray(coords), n_neighbors=4)
@@ -1304,15 +1020,16 @@ def test_global_win_far_validation():
     with pytest.raises(ValueError, match="precision='int8'"):
         banded_permutation_test(plan, Z, S0, obs, seed=0, n_permutations=9,
                                 precision="f32", far_mode="win")
-    runless = plan._replace(far_starts=None, far_bmax=0)
-    with pytest.raises(ValueError, match="far-run structure"):
-        banded_permutation_test(runless, Z, S0, obs, seed=0,
-                                n_permutations=9, precision="int8",
-                                far_mode="win")
-    # auto on a runless plan: exact path, still works
-    p, _, _ = banded_permutation_test(runless, Z, S0, obs, seed=0,
-                                      n_permutations=9, precision="int8")
-    assert np.isfinite(np.asarray(p)).all()
+    with pytest.raises(ValueError, match="far_mode must be"):
+        banded_permutation_test(plan, Z, S0, obs, seed=0, n_permutations=9,
+                                precision="int8", far_mode="windowed")
+    # int8's default far mode is the windowed operator
+    p_r, _, _ = banded_permutation_test(plan, Z, S0, obs, seed=0,
+                                        n_permutations=9, precision="int8")
+    p_f, _, _ = banded_permutation_test(plan, Z, S0, obs, seed=0,
+                                        n_permutations=9, precision="int8",
+                                        far_mode="win")
+    np.testing.assert_array_equal(np.asarray(p_r), np.asarray(p_f))
 
 
 def test_quantize_z4_roundtrip():
@@ -1360,24 +1077,6 @@ def test_int4_decisions_match_f32(setup):
         assert ((np.asarray(p4) < 0.05) == (np.asarray(p32) < 0.05)).all()
 
 
-def test_int4_pallas_matches_xla_twin(setup):
-    """Interpret-mode int4 win kernel vs its XLA twin: identical integer
-    dots, f32-summation-order tolerance on the outputs."""
-    coords, graph, Z = setup
-    plan = build_null_plan(graph, coords, block=64)
-    S0 = float(np.asarray(graph.neighbor_w).sum())
-    obs = moran_observed(graph, Z, S0)
-    p_k, m_k, _ = banded_permutation_test(
-        plan, Z, S0, obs, seed=2, n_permutations=29, precision="int4",
-        band_impl="pallas_halo")
-    p_x, m_x, _ = banded_permutation_test(
-        plan, Z, S0, obs, seed=2, n_permutations=29, precision="int4",
-        band_impl="xla")
-    np.testing.assert_allclose(np.asarray(p_k), np.asarray(p_x), atol=0.05)
-    np.testing.assert_allclose(np.asarray(m_k), np.asarray(m_x),
-                               rtol=1e-5, atol=1e-6)
-
-
 def test_int4_draw_offset_chunks(setup):
     """Chunked int4 draws reproduce the unchunked counts bitwise."""
     coords, graph, Z = setup
@@ -1400,8 +1099,8 @@ def test_int4_draw_offset_chunks(setup):
 
 def test_int4_prepacked_matches_inline(setup):
     """Streaming preps pass (Zpk, sz) pre-packed; must equal the inline
-    _quantize_z4 route bit-for-bit. Pre-packed tables must cover a
-    256-multiple gene count (half-alignment rule)."""
+    _quantize_z4 route bit-for-bit. An odd unpacked width is padded by
+    one inert column for the split-half pairing."""
     from spatialcore_tpu.ops.banded import _quantize_z4
 
     coords, graph, Z = setup
@@ -1422,9 +1121,15 @@ def test_int4_prepacked_matches_inline(setup):
     # a per-gene positive factor that cancels in every p comparison
     np.testing.assert_allclose(np.asarray(m_in), np.asarray(m_pk),
                                rtol=0.06, atol=1e-7)
-    with pytest.raises(ValueError, match="256-multiple"):
-        banded_permutation_test(plan, Zpk[:, :70], S0, obs[:140], seed=3,
-                                n_permutations=9, precision="int4", sz=s4)
+    p_odd, _, _ = banded_permutation_test(
+        plan, Z[:, :11], S0, obs[:11], seed=3, n_permutations=29,
+        precision="int4")
+    p_even, _, _ = banded_permutation_test(
+        plan, jnp.pad(Z[:, :11], ((0, 0), (0, 1))), S0,
+        jnp.pad(obs[:11], (0, 1)), seed=3, n_permutations=29,
+        precision="int4")
+    assert p_odd.shape == (11,)
+    np.testing.assert_array_equal(np.asarray(p_odd), np.asarray(p_even)[:11])
 
 
 def test_int4_validation(setup):
@@ -1435,7 +1140,10 @@ def test_int4_validation(setup):
     with pytest.raises(ValueError, match="no exact-far"):
         banded_permutation_test(plan, Z, S0, obs, seed=0, n_permutations=9,
                                 precision="int4", far_mode="exact")
-    runless = plan._replace(far_starts=None, far_bmax=0)
-    with pytest.raises(ValueError, match="far-run structure"):
-        banded_permutation_test(runless, Z, S0, obs, seed=0,
-                                n_permutations=9, precision="int4")
+    # int4 always runs the windowed far operator
+    p_r, _, _ = banded_permutation_test(plan, Z, S0, obs, seed=0,
+                                        n_permutations=9, precision="int4")
+    p_f, _, _ = banded_permutation_test(plan, Z, S0, obs, seed=0,
+                                        n_permutations=9, precision="int4",
+                                        far_mode="win")
+    np.testing.assert_array_equal(np.asarray(p_r), np.asarray(p_f))

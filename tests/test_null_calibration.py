@@ -13,9 +13,8 @@ p-value convention under test: two-one-sided ``(#extreme + 1)/(P + 1)``
 The p-values are discrete on {k/(P+1)}, so uniformity runs as a
 chi-square on equiprobable bins rather than a continuous KS.
 
-The TPU-scale twin of this test (250k cells x 2,048 genes) is
-tools/measure_calibration.py; its measured table lives in
-docs/performance.md.
+The at-scale twin of this test (250k cells x 2,048 genes, on the
+device) is tools/measure_calibration.py.
 """
 
 import jax.numpy as jnp

@@ -251,11 +251,10 @@ def test_banded_sharded_matches_and_collective_free(world):
     obs = moran_observed(graph, Z, S0)
 
     p1, m1, s1 = banded_permutation_test(plan, Z, S0, obs, seed=3,
-                                         n_permutations=20, band_impl="xla")
+                                         n_permutations=20)
     mesh = auto_mesh()
     p8, m8, s8 = sharded_banded_permutation_test(
-        plan, Z, S0, obs, seed=3, n_permutations=20, mesh=mesh,
-        band_impl="xla")
+        plan, Z, S0, obs, seed=3, n_permutations=20, mesh=mesh)
     np.testing.assert_array_equal(np.asarray(p8), np.asarray(p1))
     np.testing.assert_allclose(np.asarray(m8), np.asarray(m1), atol=1e-6)
 
@@ -274,8 +273,7 @@ def test_banded_sharded_matches_and_collective_free(world):
             plan_r.far_dst, plan_r.far_w, plan_r.rc_sum, Zs, S0, obs_s,
             jnp.uint32(3), den_s, block=plan.block, n=plan.n,
             n_permutations=20, stat="moran", alternative="greater",
-            precision="bf16", perm_method="feistel", band_impl="xla",
-            interpret=True)
+            precision="bf16", perm_method="feistel")
         hlo = lowered.compile().as_text()
     collectives = ["all-gather", "all-reduce", "collective-permute",
                    "all-to-all", "reduce-scatter", "collective-broadcast"]
@@ -335,12 +333,11 @@ def test_banded_sharded_int8_matches_and_collective_free(world):
     obs = moran_observed(graph, Z, S0)
 
     p1, m1, s1 = banded_permutation_test(plan, Z, S0, obs, seed=3,
-                                         n_permutations=20, band_impl="xla",
+                                         n_permutations=20,
                                          precision="int8")
     mesh = auto_mesh()
     p8, m8, s8 = sharded_banded_permutation_test(
-        plan, Z, S0, obs, seed=3, n_permutations=20, mesh=mesh,
-        band_impl="xla", precision="int8")
+        plan, Z, S0, obs, seed=3, n_permutations=20, mesh=mesh, precision="int8")
     np.testing.assert_array_equal(np.asarray(p8), np.asarray(p1))
     np.testing.assert_allclose(np.asarray(m8), np.asarray(m1), atol=1e-6)
 
@@ -359,8 +356,7 @@ def test_banded_sharded_int8_matches_and_collective_free(world):
             plan_r.far_dst, plan_r.far_w, plan_r.rc_sum, Zs, S0, obs_s,
             jnp.uint32(3), den_s, sz_s, block=plan.block, n=plan.n,
             n_permutations=20, stat="moran", alternative="greater",
-            precision="int8", perm_method="feistel", band_impl="xla",
-            interpret=True)
+            precision="int8", perm_method="feistel")
         hlo = lowered.compile().as_text()
     collectives = ["all-gather", "all-reduce", "collective-permute",
                    "all-to-all", "reduce-scatter", "collective-broadcast"]
@@ -461,12 +457,11 @@ def test_sharded_fused_moran_geary_bitwise(world):
                      geary_observed(graph, Z, S0)])
     p1, m1, s1 = banded_permutation_test(
         plan, Z, S0, obs, seed=7, n_permutations=20, stat="moran_geary",
-        alternative=("greater", "less"), band_impl="xla")
+        alternative=("greater", "less"))
     mesh = auto_mesh()
     p8, m8, s8 = sharded_banded_permutation_test(
         plan, Z, S0, obs, seed=7, n_permutations=20, mesh=mesh,
-        stat="moran_geary", alternative=("greater", "less"),
-        band_impl="xla")
+        stat="moran_geary", alternative=("greater", "less"))
     assert p8.shape == (2, Z.shape[1])
     # p (integer extreme counts) is bitwise; the null moments differ only
     # in float summation order under the shard layout (same convention as

@@ -1,4 +1,4 @@
-"""Streaming >HBM gene-axis driver (ops/streaming.py) — round-3 item 5."""
+"""Streaming gene-axis nulls (ops/streaming.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,12 +29,12 @@ def test_streaming_single_tile_matches_direct():
     I, p, m, s = streaming_moran_null(
         graph, plan, lambda st, w, ci: jnp.asarray(X[:, st:st + w]),
         n_genes=g, S0=S0, seed=5, n_permutations=30, tile=64,
-        prep_chunk=64, chunk=64, band_impl="xla")
+        prep_chunk=64, chunk=64)
 
     Z, _ = standardize(jnp.asarray(np.pad(X, ((0, 0), (0, 64 - g)))))
     obs = moran_observed(graph, Z, S0)
     p_ref, m_ref, s_ref = banded_permutation_test(
-        plan, Z, S0, obs, seed=5, n_permutations=30, band_impl="xla")
+        plan, Z, S0, obs, seed=5, n_permutations=30)
     # the count -> p round-trip reassociates one f32 division: compare the
     # exact integer extreme counts, not the 1-ulp-differing quotients
     np.testing.assert_array_equal(np.round(p * 31 - 1),
@@ -58,7 +58,7 @@ def test_streaming_multi_tile_shapes_and_consistency():
     I, p, m, s = streaming_moran_null(
         graph, plan, lambda st, w, ci: jnp.asarray(X[:, st:st + w]),
         n_genes=g, S0=S0, seed=1, n_permutations=20, tile=16,
-        prep_chunk=8, chunk=8, band_impl="xla")
+        prep_chunk=8, chunk=8)
     assert I.shape == p.shape == m.shape == s.shape == (g,)
 
     Z, _ = standardize(jnp.asarray(X))
@@ -81,7 +81,7 @@ def test_streaming_int8_matches_bf16_decisions():
     S0 = float(n)
 
     kw = dict(n_genes=g, S0=S0, seed=2, n_permutations=49, tile=32,
-              prep_chunk=16, chunk=25, band_impl="xla")
+              prep_chunk=16, chunk=25)
     I8, p8, m8, s8 = streaming_moran_null(
         graph, plan, lambda st, w, ci: jnp.asarray(X[:, st:st + w]),
         precision="int8", **kw)
@@ -138,15 +138,17 @@ def test_streaming_int4_matches_prepacked_direct():
     _, p32, _, _ = streaming_moran_null(
         graph, plan, lambda st, w, ci: jnp.asarray(X[:, st:st + w]),
         n_genes=g, S0=S0, seed=4, n_permutations=P, tile=256,
-        prep_chunk=128, chunk=16, precision="f32", band_impl="xla")
+        prep_chunk=128, chunk=16, precision="f32")
     assert np.mean((p2 < 0.05) != (p32 < 0.05)) <= 0.05
 
-    # invalid schedules fail loudly
-    with pytest.raises(ValueError, match="int4"):
-        streaming_moran_null(
-            graph, plan, lambda st, w, ci: jnp.asarray(X[:, st:st + w]),
-            n_genes=64, S0=S0, seed=4, n_permutations=4, tile=128,
-            prep_chunk=64, precision="int4")
+    # invalid schedules fail loudly: an odd tile, and a tile above
+    # prep_chunk that holds an odd number of prep chunks
+    for n_genes, tile, prep_chunk in ((65, 130, 64), (192, 192, 128)):
+        with pytest.raises(ValueError, match="int4"):
+            streaming_moran_null(
+                graph, plan, lambda st, w, ci: jnp.asarray(X[:, st:st + w]),
+                n_genes=n_genes, S0=S0, seed=4, n_permutations=4,
+                tile=tile, prep_chunk=prep_chunk, precision="int4")
 
 
 def test_chunk_and_tile_split_invariance():
@@ -163,7 +165,7 @@ def test_chunk_and_tile_split_invariance():
         return streaming_moran_null(
             graph, plan, lambda st, w, ci: jnp.asarray(X[:, st:st + w]),
             n_genes=g, S0=S0, seed=11, n_permutations=24, tile=tile,
-            prep_chunk=16, chunk=chunk, band_impl="xla")
+            prep_chunk=16, chunk=chunk)
 
     I0, p0, m0, s0 = run(tile=48, chunk=24)     # one tile, one chunk
     for tile, chunk in ((48, 8), (16, 24), (16, 8)):
@@ -188,8 +190,7 @@ def test_streaming_geary_observed_is_geary():
     C, p, m, s = streaming_moran_null(
         graph, plan, lambda st, w, ci: jnp.asarray(X[:, st:st + w]),
         n_genes=g, S0=S0, seed=2, n_permutations=30, tile=32,
-        prep_chunk=16, chunk=15, stat="geary", alternative="less",
-        band_impl="xla")
+        prep_chunk=16, chunk=15, stat="geary", alternative="less")
     Z, _ = standardize(jnp.asarray(np.pad(X, ((0, 0), (0, 32 - g)))))
     C_ref = np.asarray(geary_observed(graph, Z, S0))[:g]
     np.testing.assert_allclose(C, C_ref, rtol=1e-4, atol=1e-6)

@@ -6,7 +6,7 @@ generated from the live package (signatures via ``inspect.signature``,
 full docstrings verbatim) and committed. Re-run after changing any public
 surface:
 
-    JAX_PLATFORM_NAME=cpu python tools/gen_api_docs.py
+    JAX_PLATFORMS=cpu python tools/gen_api_docs.py
 
 The docs CI builds with ``mkdocs build --strict``, so broken nav entries
 fail loudly. Matches the reference's per-module API depth
@@ -40,7 +40,7 @@ SECTIONS = [
      "Mesh construction and sharded statistics for multi-chip scaling."),
     ("ops", "spatialcore_tpu.ops",
      "Device kernels: graphs, Moran/Lee/Geary/Getis, banded nulls, "
-     "streaming, k-means, Ripley, geometry, Pallas kNN."),
+     "streaming, k-means, Ripley, geometry."),
     ("utils", "spatialcore_tpu.utils",
      "Sparse helpers and profiling."),
 ]
@@ -48,7 +48,7 @@ SECTIONS = [
 # ops/utils are not facade re-exports; document their public modules
 MODULE_SECTIONS = {
     "ops": ["graph", "moran", "lee", "banded", "streaming", "getis",
-            "fdr", "kmeans", "ripley", "geometry", "pallas_knn"],
+            "fdr", "kmeans", "ripley", "geometry"],
     "utils": ["sparse", "profiling"],
 }
 

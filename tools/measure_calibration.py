@@ -1,4 +1,4 @@
-"""TPU-scale null-calibration measurement (VERDICT r3 item 3).
+"""Null-calibration measurement at scale on the device.
 
 On a synthetic null world (no spatial signal) at scale, measure for each
 null precision (f32 / int8 / int4):
@@ -10,13 +10,12 @@ null precision (f32 / int8 / int4):
 * the borderline-decision flip rate vs f32 at raw alpha=0.05 and the
   BH-FDR discovery counts.
 
-Results go into docs/performance.md's calibration table. CPU twin:
+Prints one JSON line per precision. CPU twin:
 tests/test_null_calibration.py.
 
 Env: CAL_CELLS (250k), CAL_GENES (2048), CAL_PERMS (499), CAL_K (6),
-CAL_CHUNK (gene-chunk width, default 1024 — the f32 banded path at
-k=50 compile-OOMs a 16 GB v5e at 1024-wide chunks [17.3 G needed,
-measured 2026-08-21]; use 512 for high-k runs).
+CAL_CHUNK (gene-chunk width, default 1024; narrower chunks bound the
+f32 banded path's temporaries at high k).
 """
 
 import json

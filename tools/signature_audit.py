@@ -9,13 +9,13 @@ parameter names.  Reports, per function:
   MISSING  reference parameters our callable does not accept (and that
            are not absorbed by **kwargs) — potential behavioral gaps
   EXTRA    parameters we accept that the reference does not — fine
-           (TPU-specific knobs), listed for the record
+           (knobs specific to this build), listed for the record
 
 Classes are compared on their ``__init__``.  Names that resolve to
 non-callables (constants, modules) are skipped.  An allowlist encodes
 reviewed, intentional differences so the companion test
 (tests/test_signature_parity.py) can assert "no UNREVIEWED missing
-parameters" without freezing the TPU-side extensions.
+parameters" without freezing this build's extensions.
 
 Run:  PYTHONPATH= JAX_PLATFORMS=cpu python tools/signature_audit.py
 """
